@@ -1,12 +1,10 @@
 #!/usr/bin/env bash
-# Wide-window refspec driver: the TPU-efficient alternative to run.sh.
+# Wide-window refspec driver: the batched alternative to run.sh.
 #
 # The reference steps fixed 100-channel windows across the band because
 # ND is a compile-time cap (jurassic.h:141, example/refspec/run.sh:7-14).
 # This build's shapes are runtime-sized, so the whole sweep batches into
-# a few WIDE formod calls -- and wide channel axes are exactly what the
-# TPU wants: nd >= 1024 fills all 8 sublanes of every (8,128) vector
-# register where nd = 100 occupies one (see README "Performance").
+# a few WIDE formod calls, each one kernel launch over every channel.
 # Window equivalence is property-tested in
 # tests/test_refspec_pipeline.py::test_refspec_wide_window_batching.
 #
@@ -35,8 +33,8 @@ for nu in $(seq "$NU0" "$WIDE" "$NU1"); do
     # Create observation geometry...
     $J.limb wide_$nu.ctl obs.tab Z0 3 Z1 68 DZ 1.0
 
-    # Call forward model (KERNEL turbo: Chebyshev-compressed tables)...
-    $J.formod wide_$nu.ctl obs.tab atm.tab rad_$nu.tab KERNEL turbo
+    # Call forward model (KERNEL auto: the fused kernel on a GPU)...
+    $J.formod wide_$nu.ctl obs.tab atm.tab rad_$nu.tab
 
     # Convert spectra...
     for f in rad_$nu*; do

@@ -4,7 +4,7 @@ Usage: ``jurassic-formod <ctl> <obs> <atm> <rad> [NAME value ...]``
 
 The reference's BENCHMARK_FORMOD block (formod.c:71-181) is available at
 runtime instead of compile time: pass ``BENCH 1`` (iterations come from
-``USETPU``^2 like the reference's useGPU^2) or ``BENCH <n>`` for an
+``USEGPU``^2 like the reference's useGPU^2) or ``BENCH <n>`` for an
 explicit count, with the same repeat-run deviation gate before timings
 are reported (formod.c:106-166).
 """
@@ -110,7 +110,7 @@ def main(argv=None) -> int:
 
     bench = s.scan_int("BENCH", -1, "0")
     if bench:
-        niter = max(1, ctl.usetpu * ctl.usetpu) if bench == 1 else bench
+        niter = max(1, ctl.usegpu * ctl.usegpu) if bench == 1 else bench
         if niter > 1:
             print(f"# always run {niter} iterations for benchmarking")
         times = []

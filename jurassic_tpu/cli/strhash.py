@@ -5,7 +5,7 @@ Usage: ``jurassic-hash <string>``
 The reference's binary-table cache tags each stored variable name with
 a djb2 string hash (jr_simple_string_hash.h:6-15, used by
 jr_binary_tables_io.h:86) and ships a tiny CLI to compute it for
-debugging (hash.c:31-35).  The TPU port's npz table cache keys on
+debugging (hash.c:31-35).  This package's npz table cache keys on
 sha256 content digests instead (tables.py), so this CLI exists purely
 for drop-in CLI-set parity: it prints the same value the reference
 prints for the same string, using the classic public-domain djb2

@@ -12,9 +12,9 @@ jurassic.c:1153-1201, and ``read_ctl``, jurassic.c:920-1022):
 * names are case-insensitive and every flag has a default.
 
 The result is a :class:`Ctl` dataclass holding the full forward-model
-configuration.  TPU-specific knobs (accelerator selection, kernel mode,
-sharding) live here too, with reference-compatible aliases where sensible
-(``USEGPU`` is accepted as an alias for ``USETPU``).
+configuration.  Execution knobs without a reference equivalent (kernel
+mode, LOS budget, ray packages) live here too; accelerator selection is
+the reference's own ``USEGPU``.
 """
 from __future__ import annotations
 
@@ -91,6 +91,12 @@ class CtlScanner:
             print(f"{name} = {value}")
         return value
 
+    def has(self, name: str) -> bool:
+        """Whether the ctl file or the argv overrides set ``name``."""
+        key = name.lower()
+        return (any(k == key for k, _ in self.entries)
+                or any(a.lower() == key for a in self.argv[1:-1]))
+
     def scan_float(self, name: str, arridx: int = -1, default: Optional[str] = None) -> float:
         v = self.scan(name, arridx, default)
         try:
@@ -151,8 +157,8 @@ class Ctl:
     rfmbin: str = "-"
     rfmhit: str = "-"
     rfmxsc: List[str] = field(default_factory=list)
-    # Accelerator (reference: useGPU; here: use the TPU/XLA-device path)
-    usetpu: int = -1
+    # Accelerator (reference useGPU: -1 if possible, 0 never, 1 required)
+    usegpu: int = -1
     # Dry-run mode
     checkmode: int = 0
     # MPI-era rank info (kept for ctl compatibility; device selection is
@@ -162,8 +168,8 @@ class Ctl:
     # Binary table cache
     read_binary: int = -1
     write_binary: int = 1
-    # TPU execution knobs (no reference equivalent)
-    kernel: str = "auto"   # auto | jax | pallas | turbo | exact
+    # Execution knobs (no reference equivalent)
+    kernel: str = "auto"   # auto | pallas | jax | fast | exact
     nlos: int = NLOS_MAX   # LOS points budget per ray (static shape)
     raypack: int = 0       # rays per pipelined package; the
                            # stream/package overlap analogue
@@ -173,10 +179,6 @@ class Ctl:
                            # GPUdrivers.cu:296-321); > 0: explicit
                            # package size; < 0: force one monolithic
                            # batch (matches ForwardModel._resolve_raypack)
-    early_exit: int = 0    # Pallas kernel: stop the LOS loop once all
-                           # lanes are opacity-frozen (exact; wins on
-                           # opaque-limb scans, costs a few % of
-                           # pipelining on transparent ones)
 
     def emitter_index(self, name: str) -> int:
         """find_emitter (jurassic.c:198-207): case-insensitive, -1 if absent."""
@@ -279,9 +281,7 @@ def read_ctl(argv: Sequence[str], verbose: bool = True) -> Ctl:
     ctl.rfmhit = s.scan("RFMHIT", -1, "-")
     ctl.rfmxsc = [s.scan("RFMXSC", ig, "-") for ig in range(ctl.ng)]
 
-    # USETPU with USEGPU accepted as alias for drop-in ctl files
-    usegpu = s.scan_int("USEGPU", -1, "-999")
-    ctl.usetpu = s.scan_int("USETPU", -1, str(usegpu if usegpu != -999 else -1))
+    ctl.usegpu = s.scan_int("USEGPU", -1, "-1")
 
     ctl.checkmode = s.scan_int("CHECKMODE", -1, "0")
     if verbose:
@@ -294,7 +294,10 @@ def read_ctl(argv: Sequence[str], verbose: bool = True) -> Ctl:
     ctl.kernel = s.scan("KERNEL", -1, "auto").lower()
     ctl.nlos = s.scan_int("NLOS", -1, str(NLOS_MAX))
     ctl.raypack = s.scan_int("RAYPACK", -1, "0")
-    ctl.early_exit = s.scan_int("EARLY_EXIT", -1, "0")
+    for key, hint in (("EARLY_EXIT", "the opacity early exit was removed"),
+                      ("USETPU", "use USEGPU")):
+        if s.has(key):
+            raise CtlError(f"{key} is no longer a ctl key ({hint})")
     return ctl
 
 

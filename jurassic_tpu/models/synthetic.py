@@ -6,7 +6,8 @@ the reference tables' documented geometric u-grid u_k = u0 * 2^(k/6)
 benchmark-scale table (hundreds of MB) materialises in well under a
 second.  The same model backs tools/make_synthetic_tables.py, which
 writes the ASCII form consumed by the locally compiled reference binary
--- so reference and TPU build can be benchmarked on identical physics.
+-- so the reference and this package can be benchmarked on identical
+physics.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@
  * ASCII file per (gas, channel) -- "minutes-long" at production table
  * sizes, which is why it is OpenMP-parallel over channels
  * (jurassic.c:329) and backed by a binary cache.  This is the native
- * equivalent for the TPU build: a C parser exposed through ctypes
+ * equivalent for this package: a C parser exposed through ctypes
  * (jurassic_tpu/native/__init__.py), called from a thread pool (the
  * GIL is released during the call, so files parse in parallel like the
  * reference's channel loop).

@@ -9,15 +9,15 @@ Two implementations of ega_eps (jr_common.h:238-268):
   index.  With float64 inputs this is the in-repo oracle (the analogue of
   the reference CPU path).
 
-* :func:`ega_eps_fast` -- the TPU production path on
+* :func:`ega_eps_fast` -- the production jnp path on
   :class:`~jurassic_tpu.tables.FastTables`: u-axis positions come from
   log2 arithmetic on the exact log-uniform resampled grid (the legitimized
   FAST_INVERSE_OF_U, jurassic.c:487-609), the eps->u inversion from a
   log-uniform optical-depth inverse table.  Remaining memory traffic is
   2-element gathers per (gas, corner, channel).
 
-Both operate on a whole (gas, channel) block [G, D] at once: G on sublanes,
-D (channels) on lanes, mirroring the reference's channel-minor layout.
+Both operate on a whole (gas, channel) block [G, D] at once, channels
+minor-most like the reference's channel-minor layout.
 """
 from __future__ import annotations
 
@@ -188,7 +188,7 @@ def ega_eps_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p):
     dtype = tau_path.dtype
 
     # Flat views: single-element gathers instead of row materialization
-    # (the Pallas kernel replaces these with VMEM slab caching).
+    # (the fused kernel, ops/rt_fused.py, makes the same gathers per lane).
     eps_flat = tbl.eps.reshape(G, P * T * K, D)
     l2u0_flat = tbl.log2_u0.reshape(G, P * T, D)
     nu_flat = tbl.nu.reshape(G, P * T, D)

@@ -9,7 +9,7 @@ Re-expression of the reference's retrieval API (C19 in SURVEY.md):
   (jurassic.c:1528-1541, 1516-1526) over finite radiance cells;
 * the finite-difference Jacobian ``kernel`` (jurassic.c:812-857) with the
   reference's per-quantity perturbation sizes — the parity oracle;
-* :func:`kernel_autodiff`, the TPU-native upgrade: one ``jax.jacfwd``
+* :func:`kernel_autodiff`: one ``jax.jacfwd``
   through the jitted raytrace + RT integration, exact derivatives in a
   single compiled pass instead of n+1 forward models.
 
@@ -162,7 +162,7 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
                     model: Optional["ForwardModel"] = None) -> np.ndarray:
     """Exact Jacobian via ``jax.jacfwd`` through the jitted pipeline.
 
-    The TPU-native upgrade over the reference's n+1 forward models
+    The upgrade over the reference's n+1 forward models
     (SURVEY.md 3.4): one compiled forward-mode pass differentiates the
     raytrace (column densities, refraction) and the RT integration jointly.
     Supports the accelerated path's atmosphere model (IP=1): single- OR
@@ -175,20 +175,18 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     inside the traced graph, so pressure derivatives flow through the
     rebuild exactly as the FD kernel sees them.
 
-    KERNEL-PATH SEAM (VERDICT r4 item 9): this function always
-    differentiates the **jnp scan pipeline** (``rt_integrate``), even
-    when ``model`` runs the fused Pallas/turbo kernel for its forward
-    radiances -- the Pallas kernel's masked-reduction row extraction
-    has no useful derivative, and the jnp path is the same physics on
-    the same tables.  Consequently the Jacobian differs from an FD
-    Jacobian computed *through the Pallas forward* by the
-    kernel-vs-jnp forward deviation (~1e-5 relative for the table
-    kernel, the documented chord-level ~1e-3 for turbo) divided by the
-    FD step -- well inside the FD truncation error for the reference's
-    perturbation sizes (tested: test_autodiff_vs_fd_through_pallas).
-    When ``model`` uses turbo/fast tables, the jnp fast path
-    (``ega_eps_fast``) is differentiated; only a ``KERNEL = exact``
-    model differentiates the reference-order exact lookups.
+    KERNEL-PATH SEAM: this function always differentiates the **jnp scan
+    pipeline** (``rt_integrate``), even when ``model`` runs the fused
+    kernel for its forward radiances -- the kernel has no derivative
+    rule, and the jnp path is the same physics on the same tables.
+    Consequently the Jacobian differs from an FD Jacobian computed
+    *through the kernel forward* by the kernel-vs-jnp forward deviation
+    (~1e-6 relative) divided by the FD step -- well inside the FD
+    truncation error for the reference's perturbation sizes (tested:
+    test_autodiff_vs_fd_through_pallas).  A model on fast tables
+    differentiates the jnp fast path (``ega_eps_fast``); only a
+    ``KERNEL = exact`` model differentiates the reference-order exact
+    lookups.
     """
     import jax
     import jax.numpy as jnp

@@ -6,7 +6,7 @@ static 10-deep stack of start times, mode 1 = start, 3 = stop + print,
 -3 = silent stop returning the elapsed seconds (used by the benchmark
 harness for statistics, formod.c:96-104).
 
-The TPU-side analogue of the reference's gprof / ``-Xptxas -v`` hooks
+The analogue of the reference's gprof / ``-Xptxas -v`` hooks
 (Makefile:21,53,72) is :func:`profile_trace`: an opt-in
 ``jax.profiler.trace`` context producing a Perfetto/TensorBoard trace
 with XLA kernel-level time attribution.

@@ -55,7 +55,7 @@ def run_dir(d: Path, kernel: str):
         ctl.fov = str(d / Path(ctl.fov).name)
     obs = read_obs(d / "obs.tab", ctl)
     atm = read_atm(d / "atm.tab", ctl)
-    fm = ForwardModel(ctl, directory=str(d))
+    fm = ForwardModel(ctl, directory=str(d), interpret=kernel == "pallas")
     fm.formod(atm, obs)
     ref = np.loadtxt(d / "rad.tab")
     return ctl, obs, ref
@@ -85,6 +85,19 @@ def test_flagship_fast_close_to_exact(flagship_dir):
     for sl in (slice(0, 40), slice(40, 70), slice(70, 100)):
         scale = np.abs(rad_ref[:, sl]).max()
         assert np.abs(obs.rad[:, sl] - rad_ref[:, sl]).max() <= 2e-3 * scale
+
+
+def test_flagship_pallas_matches_reference(flagship_dir):
+    """The fused kernel on the flagship golden (100 channels x 5 gases,
+    all four continua) against the C oracle, at the kernel's bar."""
+    ctl, obs, ref = run_dir(flagship_dir, "pallas")
+    nd = ctl.nd
+    rad_ref = ref[:, 10:10 + nd]
+    tau_ref = ref[:, 10 + nd:10 + 2 * nd]
+    for sl in (slice(0, 40), slice(40, 70), slice(70, 100)):
+        scale = np.abs(rad_ref[:, sl]).max()
+        assert np.abs(obs.rad[:, sl] - rad_ref[:, sl]).max() <= 2e-3 * scale
+    assert np.abs(obs.tau - tau_ref).max() <= 2e-3
 
 
 def test_fov_convolution_matches_reference():

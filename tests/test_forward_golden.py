@@ -36,7 +36,7 @@ def run_case(case: str, kernel: str):
     ctl.tblbase = str(d / Path(ctl.tblbase).name)
     obs = read_obs(d / "obs.tab", ctl)
     atm = read_atm(d / "atm.tab", ctl)
-    fm = ForwardModel(ctl, directory=str(d))
+    fm = ForwardModel(ctl, directory=str(d), interpret=kernel == "pallas")
     fm.formod(atm, obs)
     ref = np.loadtxt(d / "rad.tab")
     return ctl, obs, ref

@@ -81,9 +81,7 @@ def test_refspec_wide_window_batching(refspec_dir):
     (jurassic.h:141, example/refspec/run.sh:7-14).  Runtime shapes
     remove the cap: ONE wide call over the union of windows must equal
     the concatenation of the narrow window runs (channels carry no
-    cross-channel state).  Wide calls are also the TPU-efficient shape:
-    nd >= 1024 fills all 8 sublanes of every vector register where
-    nd = 100 uses one."""
+    cross-channel state)."""
     from jurassic_tpu.config import read_ctl
     from jurassic_tpu.forward import ForwardModel
     from jurassic_tpu.io_tab import read_atm, read_obs

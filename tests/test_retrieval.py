@@ -76,33 +76,31 @@ def test_fd_vs_autodiff_jacobian(setup):
 
 
 def test_autodiff_vs_fd_through_pallas():
-    """The autodiff/kernel-path seam (VERDICT r4 item 9):
-    kernel_autodiff differentiates the jnp pipeline even for a model
-    whose FORWARD runs the fused turbo kernel, so an FD Jacobian
-    computed through the *Pallas* forward mixes paths.  The two must
-    still agree at the FD-truncation + turbo-chord tolerance -- this
-    pins down that the seam is a documented approximation, not a
-    correctness hole."""
+    """The autodiff/kernel-path seam: kernel_autodiff differentiates the
+    jnp pipeline even for a model whose FORWARD runs the fused kernel,
+    so an FD Jacobian computed through the kernel forward mixes paths.
+    The two must still agree at the FD-truncation tolerance -- the seam
+    is a documented approximation, not a correctness hole."""
     ctl = synthetic_ctl(ng=2, nd=4)
     ctl.nlos = 48
     ctl.rayds, ctl.raydz = 50.0, 5.0
-    # tiny state: 3 temperature levels (every Pallas-interpret forward
-    # call costs seconds on the CPU test backend)
+    # tiny state: 3 temperature levels (every interpret-mode kernel
+    # forward costs about a second on the CPU test backend)
     ctl.rett_zmin, ctl.rett_zmax = 10.0, 20.0
     atm = synthetic_atm(ctl, dz=5.0)
     obs = limb_workload(ctl, 4)
     ft = synthetic_fast_tables(ctl, n_p=8, n_t=5, n_k=40)
-    ctl.kernel = "turbo"
-    model = ForwardModel(ctl, fast_tables=ft)
+    ctl.kernel = "pallas"
+    model = ForwardModel(ctl, fast_tables=ft, interpret=True)
     assert model.kernel_mode == "pallas"
-    K_fd = kernel(ctl, atm.copy(), obs.copy(), model)   # pallas forward
+    K_fd = kernel(ctl, atm.copy(), obs.copy(), model)   # kernel forward
     K_ad = kernel_autodiff(ctl, atm.copy(), obs.copy(), model)  # jnp
     assert K_fd.shape == K_ad.shape == (obs.nr * ctl.nd, 3)
     scale = np.abs(K_ad).max()
     assert scale > 0
-    # turbo forward deviates from jnp by ~1e-5 relative (fit floor);
-    # across the 1 K FD step that adds ~1e-3 of the Jacobian scale on
-    # top of the 1% FD truncation budget
+    # the float32 kernel forward deviates from jnp by ~1e-6 relative;
+    # across the 1 K FD step that is far inside the 1% FD truncation
+    # budget
     np.testing.assert_allclose(K_fd, K_ad, atol=2e-2 * scale, rtol=0.05)
 
 
@@ -196,3 +194,25 @@ def test_write_read_matrix_roundtrip(tmp_path, setup):
     K2 = read_matrix(path, K.shape)
     nz = K != 0
     np.testing.assert_allclose(K2[nz], K[nz], rtol=1e-4)
+
+
+def test_fd_vs_autodiff_float32():
+    """The Jacobian in float32, the GPU's working precision: the column
+    density's temperature derivative must stay finite ((KB*T)**2
+    underflows float32) and agree with the FD Jacobian."""
+    import jax.numpy as jnp
+    ctl = synthetic_ctl(ng=2, nd=4)
+    ctl.nlos = 96
+    ctl.rayds, ctl.raydz = 50.0, 5.0
+    ctl.rett_zmin, ctl.rett_zmax = 10.0, 30.0
+    atm = synthetic_atm(ctl, dz=5.0)
+    obs = limb_workload(ctl, 4)
+    model = ForwardModel(ctl, dtype=jnp.float32,
+                         fast_tables=synthetic_fast_tables(
+                             ctl, n_p=12, n_t=8, n_k=96))
+    K_fd = kernel(ctl, atm.copy(), obs.copy(), model)
+    K_ad = kernel_autodiff(ctl, atm.copy(), obs.copy(), model)
+    assert np.isfinite(K_ad).all()
+    scale = np.abs(K_ad).max()
+    assert scale > 0
+    np.testing.assert_allclose(K_fd, K_ad, atol=2e-2 * scale, rtol=0.05)

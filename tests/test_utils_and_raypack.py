@@ -60,45 +60,47 @@ def test_formod_selector_guard():
 
 
 def test_usetpu_dispatch(monkeypatch):
-    """USETPU/USEGPU -1/0/1 execution-path dispatch (the reference's
-    useGPU "if possible / never / required", CPUdrivers.c:179-193):
-    0 pins the jnp pipeline on the host CPU backend, 1 demands an
-    accelerator backend, -1 auto-selects."""
+    """USEGPU -1/0/1 execution-path dispatch (the reference's useGPU
+    "if possible / never / required", CPUdrivers.c:179-193): 0 pins the
+    jnp pipeline on the host CPU backend, 1 demands a GPU backend, -1
+    takes the GPU when there is one."""
     import jax
     ctl = synthetic_ctl(ng=2, nd=4)
     ft = synthetic_fast_tables(ctl, n_p=6, n_t=4, n_k=32)
     atm = synthetic_atm(ctl)
     obs = limb_workload(ctl, 3)
 
-    # pretend an accelerator backend is active (the CPU suite runs the
-    # accelerator branch in interpret mode, like the auto-fallback test)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # pretend a GPU backend is active (construction only: nothing here
+    # compiles the kernel for the CPU devices)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
 
-    ctl.usetpu = -1
+    ctl.usegpu = -1
     assert ForwardModel(ctl, fast_tables=ft).kernel_mode == "pallas"
-    ctl.usetpu = 1
+    ctl.usegpu = 1
     assert ForwardModel(ctl, fast_tables=ft).kernel_mode == "pallas"
-    ctl.usetpu = 0
+    ctl.usegpu = 0
     m0 = ForwardModel(ctl, fast_tables=ft)
     assert m0.kernel_mode == "jax"           # never the accelerator path
     assert m0.exec_device is not None        # pinned to host CPU
     assert m0.exec_device.platform == "cpu"
     m0.formod(atm, obs.copy())               # runs end to end when pinned
-    # an explicit accelerator kernel still runs (interpret mode on the
-    # pinned CPU devices), only auto re-resolves to the jnp pipeline
+    # an explicit kernel on the pinned CPU runs only when the caller asks
+    # for interpret mode
     ctl.kernel = "pallas"
-    mp = ForwardModel(ctl, fast_tables=ft)
-    assert mp.kernel_mode == "pallas" and mp.pallas_interpret
+    with pytest.raises(ValueError, match="interpret"):
+        ForwardModel(ctl, fast_tables=ft)
+    mp = ForwardModel(ctl, fast_tables=ft, interpret=True)
+    assert mp.kernel_mode == "pallas" and mp.interpret
     ctl.kernel = "auto"
 
-    # a genuinely CPU-only backend must refuse USETPU = 1
+    # a CPU-only backend must refuse USEGPU = 1
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    ctl.usetpu = 1
-    with pytest.raises(ValueError, match="USETPU = 1"):
+    ctl.usegpu = 1
+    with pytest.raises(ValueError, match="USEGPU = 1"):
         ForwardModel(ctl, fast_tables=ft)
-    ctl.usetpu = 0
+    ctl.usegpu = 0
     assert ForwardModel(ctl, fast_tables=ft).exec_device is None
-    ctl.usetpu = -1
+    ctl.usegpu = -1
 
 
 def test_raypack_bitwise_identical():

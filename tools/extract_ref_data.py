@@ -18,7 +18,7 @@ continuum-absorption coefficient tables as C array initializers that are
 
 These are physical data (measured/compiled spectroscopic coefficients), not
 code. We parse the initializers with a small regex scanner and store them as
-compressed .npz files under ``jurassic_tpu/data/`` so the TPU package is fully
+compressed .npz files under ``jurassic_tpu/data/`` so the package is fully
 standalone. Run this script only to regenerate the .npz files from a reference
 checkout; the outputs are committed.
 """

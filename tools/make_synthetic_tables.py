@@ -63,7 +63,7 @@ def write_table_bench(path: Path, gas_index: int, s0: float, nu: float,
                       n_p: int = 40, n_t: int = 30, n_k: int = 224):
     """Benchmark-grid table, bit-matching the physics of
     jurassic_tpu.models.synthetic.synthetic_fast_tables so the reference
-    binary and the TPU build can be benchmarked on identical tables
+    binary and this package can be benchmarked on identical tables
     (VERDICT round-1 item 2: workload-matched baseline)."""
     p_grid = np.logspace(np.log10(3e-3), np.log10(1013.25), n_p)
     t_grid = np.linspace(160.0, 330.0, n_t)

@@ -6,7 +6,7 @@ workload-matched bench.py configuration -- identical synthetic tables
 (--grid bench, the 40x30x224 grid from models/synthetic.py), identical
 1084-ray limb scan (Z0 3 Z1 68 DZ 0.06), 100 channels, 4 gases, default
 RAYDS=10/RAYDZ=0.5 -- and records rays*channels/s into
-BENCH_BASELINE.json, which bench.py uses for its ``vs_baseline`` field.
+BENCH_BASELINE.json (a CPU measurement of the C binary on this host).
 
 Methodology: the reference timing harness is compile-time-gated
 (BENCHMARK_FORMOD, formod.c:71-181), so we measure at the process level
